@@ -2,7 +2,7 @@
 //
 // The reference's IO path is iOS AVCapture + its record/playback reader
 // (ViewController.mm:1555-1714). The offline equivalent here feeds the
-// TPU pipeline from disk; pure-Python PNG decoding of 752x480 frames
+// device pipeline from disk; pure-Python PNG decoding of 752x480 frames
 // costs tens of milliseconds per image (unfiltering is serial per
 // scanline), which would starve a >100 fps device pipeline. This loader
 // decodes 8-bit grayscale PNGs (EuRoC cam0 format) on worker threads

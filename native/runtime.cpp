@@ -1,6 +1,6 @@
 // Native streaming runtime: sensor ring buffers + measurement alignment.
 //
-// TPU-native equivalent of the reference's sensor/orchestration layer
+// Equivalent of the reference's sensor/orchestration layer
 // (VINS_ios/ViewController.mm): the accel/gyro callback queues with
 // linear interpolation of acceleration to gyro timestamps
 // (imuStartUpdate, ViewController.mm:1020-1173, interpolation

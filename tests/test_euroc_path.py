@@ -126,7 +126,7 @@ def test_run_euroc_revisit_loop_closure(tmp_path):
     # bounded; the retroactive map correction below is the real gate).
     assert result["ate_rmse"] <= result["ate_rmse_raw"] * 1.05 + 1e-3, \
         result
-    # Measured 0.146 (ACCURACY_r04); 0.18 = measured + ~25% margin
+    # Measured 0.146 (round-4 accuracy report); 0.18 = measured + ~25% margin
     # (VERDICT r4 item 6 — the old 0.3 gate passed a 2x regression).
     assert result["ate_rmse"] < 0.18, result
     # The pose-graph-corrected keyframe map must BEAT the raw odometry

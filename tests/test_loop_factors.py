@@ -3,7 +3,7 @@
 The reference injects matched old-keyframe observations as projection
 factors against a free 'loop pose' parameter block (VINS.cpp:571-637) and
 reads the loop relative pose off the SOLVED window (VINS.cpp:663-680);
-these tests verify the TPU-native equivalent: the recovered relative
+these tests verify this design's equivalent: the recovered relative
 constraint must equal ground truth and be invariant to the window's
 accumulated drift (which is exactly what makes it a useful pose-graph
 measurement).

@@ -187,3 +187,32 @@ def test_fast_detects_corners():
     # Strong responses near the 4 rectangle corners, none in flat regions.
     assert s[38:44, 48:54].max() > 0 or s[38:44, 106:112].max() > 0
     assert s[55:65, 70:90].max() == 0.0
+
+
+def test_brief_bits_match_numpy_sampling_of_pattern():
+    """Every BRIEF bit equals an independent numpy evaluation of the
+    make_pattern test pairs on the smoothed image: keypoints on integer
+    pixels make each tap an exact pixel read, so the bits must agree
+    exactly (the shipped vocabularies were trained on these bits)."""
+    from vins_tpu.ops import brief
+
+    rng = np.random.default_rng(3)
+    H, W = 96, 128
+    img = jnp.asarray(rng.random((H, W)), jnp.float32)
+    pts = np.stack([rng.integers(25, W - 25, 20),
+                    rng.integers(25, H - 25, 20)], -1).astype(np.float32)
+    valid = np.ones(20, bool)
+    valid[[4, 11]] = False
+    desc = np.asarray(brief.extract_brief(img, jnp.asarray(pts),
+                                          jnp.asarray(valid)))
+    smoothed = np.asarray(image.gaussian_blur(img, 2.0))
+    pat = brief.make_pattern().astype(np.int64)
+    for n, (x, y) in enumerate(pts.astype(np.int64)):
+        if not valid[n]:
+            assert not desc[n].any()
+            continue
+        a = smoothed[y + pat[:, 1], x + pat[:, 0]]
+        b = smoothed[y + pat[:, 3], x + pat[:, 2]]
+        bits = (a < b).astype(np.uint64).reshape(8, 32)
+        words = (bits << np.arange(32, dtype=np.uint64)).sum(1)
+        np.testing.assert_array_equal(desc[n], words.astype(np.uint32))

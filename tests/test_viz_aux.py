@@ -144,5 +144,39 @@ def test_cost_analysis_reports_flops():
     # 64^3 multiply-adds = 2*64^3 flops; CPU backend reports flops.
     if "flops" in costs:
         assert costs["flops"] >= 2 * 64 ** 3 * 0.5
-    sol = speed_of_light(f, x, measured_s=1.0)
+    sol = speed_of_light(f, x, device_kind="NVIDIA H100 80GB HBM3",
+                         measured_s=1.0)
     assert sol["t_bound_s"] >= 0.0
+
+
+def test_peak_table_rejects_unknown_device():
+    """Roofline shares come only from a device with published peaks: an
+    unknown device_kind (the CPU here) is an error, not a default."""
+    import jax
+    import pytest
+
+    from vins_tpu.utils.profiling import PEAKS, device_peaks
+
+    assert device_peaks("NVIDIA H100 80GB HBM3")["flops_per_s"] == 67e12
+    assert jax.devices()[0].device_kind not in PEAKS
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks(jax.devices()[0].device_kind)
+    with pytest.raises(KeyError):
+        speed_of_light(lambda x: x @ x, jnp.ones((8, 8)),
+                       device_kind="unlisted accelerator")
+
+
+def test_roofline_is_the_slower_of_compute_and_memory():
+    import pytest
+
+    from vins_tpu.utils.profiling import roofline
+
+    kind = "NVIDIA H100 80GB HBM3"
+    r = roofline(67e12, 0.5 * 3.35e12, kind, measured_s=4.0)
+    assert r["t_compute_s"] == pytest.approx(1.0)
+    assert r["t_memory_s"] == pytest.approx(0.5)
+    assert r["t_bound_s"] == pytest.approx(1.0)
+    assert r["sol_fraction"] == pytest.approx(0.25)
+    assert roofline(0.0, 2 * 3.35e12, kind)["t_bound_s"] == pytest.approx(2.0)
+    with pytest.raises(KeyError):
+        roofline(1.0, 1.0, "unlisted accelerator")

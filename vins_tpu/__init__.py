@@ -1,4 +1,4 @@
-"""vins_tpu — a TPU-native monocular visual-inertial odometry / SLAM engine.
+"""vins_tpu — a monocular visual-inertial odometry / SLAM engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability set of
 HKUST-Aerial-Robotics/VINS-Mobile (see SURVEY.md): KLT front-end, IMU
@@ -12,24 +12,23 @@ import os as _os
 import jax as _jax
 
 # The estimator is small-matrix nonlinear least squares, not NN matmuls:
-# TPU's default bf16 MXU passes destroy the conditioned linear systems
-# (visual-inertial alignment verifiably fails). Force full fp32 matmuls.
+# reduced-precision matmul passes (bf16, TF32) destroy the conditioned
+# linear systems (visual-inertial alignment verifiably fails). Force full
+# fp32 matmuls.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 # Persistent XLA compilation cache: the full system compiles ~a dozen
 # distinct programs (frontend init/track, boot, backend, pnp, loop
-# kernels); on a remote-compile TPU backend the first run pays tens of
-# seconds per program. Cache survives across processes so replay runs,
-# benchmarks, and the examples start hot. Override/disable with
-# VINS_TPU_CACHE (empty string disables).
-_cache_dir = _os.environ.get(
-    "VINS_TPU_CACHE",
-    _os.path.join(_os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__))), ".xla_cache"))
-if _cache_dir:
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+# kernels), so replay runs, benchmarks and the examples start hot from the
+# second process on. JAX_COMPILATION_CACHE_DIR, when set, is JAX's own
+# setting and wins; otherwise the cache lives at the fixed
+# <checkout>/.xla_cache (the path is part of the cache key).
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".xla_cache"))
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+_jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 from .config import (VinsConfig, CameraConfig, ImuConfig, SolverConfig,
                      FrontendConfig, LoopConfig, WindowConfig, MeshConfig,

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native VIO/SLAM engine.
+"""Typed configuration for the VIO/SLAM engine.
 
 Replaces the reference's three-tier config (compile-time #defines in
 VINS_ios/global_param.hpp:23-53, per-device runtime table in
@@ -166,7 +166,6 @@ class FrontendConfig:
     pyramid_levels: int = 3
     klt_window: int = 21             # LK window (21x21)
     klt_iters: int = 10              # LK iterations per level
-    klt_eps: float = 0.01            # LK convergence threshold (px)
     f_ransac_thresh: float = 1.0     # F-matrix RANSAC threshold in px (F_THRESHOLD)
     f_ransac_hyps: int = 256         # fixed hypothesis count (batched RANSAC)
     clahe_clip: float = 3.0          # CLAHE clip limit (ViewController.mm:439)

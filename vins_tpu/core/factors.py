@@ -1,6 +1,6 @@
 """Batched factor residuals and tangent-space Jacobians.
 
-TPU-native re-design of the reference's Ceres cost functions:
+Dense batched re-design of the reference's Ceres cost functions:
   * IMU factor        — VINS_ios/imu_factor.h:27-184 (15-dim, whitened by
                         sqrt-information of the preintegration covariance)
   * Projection factor — VINS_ios/projection_facor.cpp:16-99 (2-dim residual

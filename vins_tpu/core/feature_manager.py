@@ -1,6 +1,6 @@
 """Feature-track lifecycle over the sliding window, on dense masked arrays.
 
-TPU-native re-design of the reference FeatureManager
+Dense fixed-shape re-design of the reference FeatureManager
 (VINS_ios/feature_manager.cpp): the `list<FeaturePerId>` with per-feature
 `vector<FeaturePerFrame>` becomes the fixed-shape [F, M] observation grid
 of `FeatureTable` (core/state.py), and every operation — slot-allocating
@@ -143,8 +143,8 @@ def triangulate(state: WindowState, feats: FeatureTable, ext: Extrinsics,
     # Inhomogeneous DLT: fix the homogeneous scale (X4 = 1; points at
     # infinity are excluded by the depth bounds anyway) and solve the
     # 3x3 normal equations in closed form via cofactors — fully
-    # elementwise, no batched LAPACK kernel (batched 4x4 eigh measured
-    # ~1.4 ms for M=256 on a v5e; this is microseconds).
+    # elementwise, no batched LAPACK kernel (a batched 4x4 eigh per
+    # landmark is a long serial solver call; this is a few fused ops).
     B = A[..., :3]                                        # [M, 2F, 3]
     c = -A[..., 3]                                        # [M, 2F]
     N = jnp.einsum("mra,mrb->mab", B, B)                  # [M, 3, 3]

@@ -1,6 +1,6 @@
 """Schur-complement marginalization producing the dense linearized prior.
 
-TPU-native replacement for the reference's 4-pthread marginalization
+Dense replacement for the reference's 4-pthread marginalization
 machinery (VINS_ios/marginalization_factor.cpp:118-300 and its use in
 VINS::solve_ceres, VINS.cpp:690-830): instead of pointer-keyed
 `ResidualBlockInfo` lists and a hand-threaded normal-equation build, the
@@ -50,8 +50,7 @@ def _info_to_sqrt(H: jax.Array, g: jax.Array, eps: float,
     H + eps·I = L Lᵀ instead: J0 = Lᵀ, r0 = L⁻¹ g. The ridge turns exact
     null directions (gauge) into a √eps-weak pull toward the
     linearization point — numerically equivalent to clamping at this eps
-    — while replacing an O(n³) iterative eigensolve (milliseconds on TPU
-    for n=150) with one Cholesky (microseconds).
+    — while replacing an O(n³) iterative eigensolve with one Cholesky.
     """
     Hs = 0.5 * (H + H.T)
     if method == "eigh":
@@ -88,7 +87,7 @@ def marginalize_old(state: WindowState, prob: WindowProblem,
 
     # --- Assemble H,g over [pose tangent D | landmark M] -----------------
     # One stacked whitened Jacobian, blocks placed scatter-free
-    # (solver._place_blocks): H = JᵀJ, g = Jᵀr on the MXU.
+    # (solver._place_blocks): H = JᵀJ, g = Jᵀr as matmuls.
     from .solver import _place_blocks
 
     # Prior factor (replayed at current state).

@@ -1,6 +1,6 @@
 """IMU preintegration as a `lax.scan` over fixed-size masked sample buffers.
 
-TPU-native re-design of the reference's `IntegrationBase`
+Fixed-shape re-design of the reference's `IntegrationBase`
 (VINS_ios/integration_base.h:17-223): midpoint integration of the
 relative-motion deltas (Δp, Δq, Δv) between consecutive window frames,
 with propagation of the 15×15 bias Jacobian and 15×15 covariance under an
@@ -216,8 +216,7 @@ def propagate(chunk: ImuChunk, linearized_ba: jax.Array,
 
     Parallel formulation of the same midpoint recursion
     (integration_base.h:63-139): a 31-step sequential scan of tiny matrix
-    ops is latency-bound on TPU (~0.5 ms per edge, 5 ms for a window
-    repropagation). Instead:
+    ops is latency-bound (31 dependent steps per edge). Instead:
       1. per-step incremental rotations δq_k depend only on gyro inputs →
          all rotation PREFIXES via one `associative_scan` of quaternion
          products (log depth);

@@ -1,13 +1,13 @@
 """Sliding-window nonlinear least-squares solver: Levenberg-Marquardt with
 explicit Schur complement over inverse-depth landmarks.
 
-This is the TPU-native replacement for the reference's Ceres solve
+This is the dense replacement for the reference's Ceres solve
 (DENSE_SCHUR + DOGLEG + use_explicit_schur_complement, VINS_ios/
 VINS.cpp:639-662): instead of a virtual-dispatch cost-function graph, the
 whole problem is assembled as ONE dense whitened Jacobian
   J : [R, D_c + M]   (R = prior + IMU + projection rows)
 built by vmapped per-factor linearizations scattered into static row/col
-slots, and the normal equations H = JᵀJ come from a single MXU matmul.
+slots, and the normal equations H = JᵀJ come from a single matmul.
 The landmark block of H is diagonal by construction (each inverse depth
 touches only its own factor rows), so the Schur complement is an
 elementwise divide + one more matmul. Iterations are a fixed-count
@@ -105,8 +105,8 @@ def select_proj_factors(prob: WindowProblem, P: int) -> ProjSelection:
     # Longest-tracked landmarks first: on overflow (more valid cells than
     # the budget) the factors of short tracks are dropped, keeping the
     # best-constrained observations. Ties break on flat grid order (stable).
-    # top_k with the index tie-break replaces a full argsort (TPU sorts
-    # are expensive; top_k of the first P is cheaper).
+    # top_k with the index tie-break replaces a full argsort (top_k of
+    # the first P is cheaper than a sort).
     n = fj.shape[0]
     track_len = jnp.sum(prob.feats.mask, axis=0).astype(w_valid.dtype)  # [M]
     score = (w_valid * (1.0 + track_len[mm]) * (2.0 * n)
@@ -211,7 +211,7 @@ def _residuals_only(state: WindowState, prob: WindowProblem,
 def _place_blocks(J_blocks: jax.Array, cols: jax.Array, D: int) -> jax.Array:
     """Scatter-free placement of per-factor Jacobian blocks into dense
     rows: [K, R, C] blocks + [K, C] column indices → [K, R, D] via a
-    one-hot contraction (TPU scatters serialize; this is one matmul)."""
+    one-hot contraction (one matmul instead of a scatter)."""
     iota = jnp.arange(D, dtype=cols.dtype)
     onehot = (cols[:, :, None] == iota[None, None, :]).astype(J_blocks.dtype)
     return jnp.einsum("krc,kcD->krD", J_blocks, onehot,

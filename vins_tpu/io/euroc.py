@@ -11,8 +11,8 @@ accuracy target). This reader walks the ASL directory layout:
 
 and yields time-aligned (imu chunk, image) pairs shaped exactly like the
 synthetic generator's streams, so the same pipeline consumes either.
-Images load via imageio if present, else a minimal PNG decoder for the
-8-bit grayscale files EuRoC ships.
+Images load through a minimal in-repo PNG decoder for the 8-bit
+grayscale files EuRoC ships (numpy + zlib only).
 """
 from __future__ import annotations
 
@@ -85,20 +85,8 @@ def load_euroc(root: str) -> EurocData:
 
 
 def load_gray_png(path: str) -> np.ndarray:
-    """Load an 8-bit grayscale PNG as float32 [H, W] in [0, 1].
-
-    Uses imageio when available; otherwise a minimal decoder sufficient
-    for EuRoC's non-interlaced 8-bit grayscale files.
-    """
-    try:
-        import imageio.v3 as iio  # type: ignore
-
-        img = iio.imread(path)
-        if img.ndim == 3:
-            img = img.mean(-1)
-        return img.astype(np.float32) / 255.0
-    except ImportError:
-        pass
+    """Load an 8-bit grayscale PNG as float32 [H, W] in [0, 1] (a minimal
+    decoder for EuRoC's non-interlaced 8-bit grayscale files)."""
     return _decode_png_gray8(path)
 
 

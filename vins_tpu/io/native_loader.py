@@ -30,8 +30,8 @@ def _build_and_load() -> ctypes.CDLL:
     src = os.path.join(_NATIVE_DIR, "dataloader.cpp")
     if (not os.path.exists(_LIB_PATH)
             or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
+        subprocess.run(["make", "-C", _NATIVE_DIR, "libvinsloader.so"],
+                       check=True, capture_output=True)
     lib = ctypes.CDLL(_LIB_PATH)
     lib.vl_open.restype = ctypes.c_void_p
     lib.vl_open.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_long,

@@ -11,7 +11,7 @@ Edges:
     expressed in the earlier node's full frame (keyfame_database.cpp:239);
   * loop — weighted relative-pose constraints from verified detections.
 
-TPU shape discipline: fixed capacity K nodes and fixed edge tables with
+Static-shape discipline: fixed capacity K nodes and fixed edge tables with
 validity weights; the whole LM loop is one jitted `lax.scan`, so repeated
 pose-graph solves (every loop closure) never recompile.
 """

@@ -10,7 +10,7 @@ with:
     matching);
   * batched bilinear-gather bit extraction → packed uint32[8] descriptors;
   * Hamming distance via XOR + `lax.population_count`, batched over whole
-    descriptor sets in one fused program (the VPU analog of a matmul).
+    descriptor sets in one fused program.
 """
 from __future__ import annotations
 
@@ -29,11 +29,10 @@ PATCH_HALF = 24          # reference pattern spans a 48x48 patch
 
 def make_pattern(seed: int = 7) -> np.ndarray:
     """[256, 4] (x1, y1, x2, y2) test-pair offsets, N(0, (S/5)²) clipped —
-    the classic BRIEF-48 construction. Offsets are rounded to integers
-    (as the reference's learned pattern is, brief_pattern.yml): with a
-    subpixel-aligned patch, integer taps are exact bilinear samples, so
-    the TPU kernel's patch-matmul formulation and the gather fallback
-    produce identical descriptors."""
+    the classic BRIEF-48 construction. Offsets are rounded to integers,
+    as the reference's learned pattern is (brief_pattern.yml); the
+    shipped vocabularies (assets/brief_k10L*.npz) were trained on these
+    bits."""
     rng = np.random.default_rng(seed)
     sigma = PATCH_HALF / 2.0
     pts = rng.normal(0.0, sigma, (BRIEF_BITS, 4))
@@ -42,23 +41,6 @@ def make_pattern(seed: int = 7) -> np.ndarray:
 
 
 _PATTERN = make_pattern()
-_PATCH_WIN = 2 * PATCH_HALF + 1          # 49x49 patch grid
-
-
-def _pattern_compare_matrix() -> np.ndarray:
-    """[_PATCH_WIN², 256] one-hot difference matrix: for flattened patch
-    P (row-major [y, x]), (P @ W)ₖ = P[b_k] − P[a_k], so descriptor bit k
-    is (P @ W)ₖ > 0 — the whole 256-bit extraction is ONE matmul."""
-    W = np.zeros((_PATCH_WIN * _PATCH_WIN, BRIEF_BITS), np.float32)
-    pat = _PATTERN.astype(np.int32)
-    for k in range(BRIEF_BITS):
-        ax, ay, bx, by = pat[k]
-        W[(ay + PATCH_HALF) * _PATCH_WIN + (ax + PATCH_HALF), k] -= 1.0
-        W[(by + PATCH_HALF) * _PATCH_WIN + (bx + PATCH_HALF), k] += 1.0
-    return W
-
-
-_CMP_W = _pattern_compare_matrix()
 
 
 def _pack_bits(bits: jax.Array) -> jax.Array:
@@ -73,43 +55,20 @@ def extract_brief(img: jax.Array, pts: jax.Array, valid: jax.Array,
     """Packed BRIEF descriptors for keypoints.
 
     img: [H, W] float; pts: [N, 2] pixel (x, y); valid: [N] bool.
-    Returns [N, 8] uint32 (invalid rows = 0).
-
-    TPU path: the per-keypoint test-pair sampling is NOT a gather —
-    XLA:TPU lowers the 2·256·N-point gather catastrophically (~12 ms for
-    512 keypoints). Instead a Pallas kernel extracts each keypoint's
-    subpixel-aligned 49x49 patch from VMEM (the LK kernels' read
-    pattern), and all 256 comparisons per keypoint become ONE
-    [N, 49²] x [49², 256] one-hot-difference matmul on the MXU
-    (bit k = patch[b_k] − patch[a_k] > 0; integer pattern offsets make
-    the patch taps exact bilinear samples).
+    Returns [N, 8] uint32 (invalid rows = 0). Bit k is
+    smoothed(pt + a_k) < smoothed(pt + b_k), each tap a bilinear sample.
     """
     smoothed = image_mod.gaussian_blur(img, blur_sigma)
+    pat = jnp.asarray(_PATTERN)
 
-    if jax.default_backend() == "tpu":
-        from .klt_pallas import extract_patches_pallas
+    def one(pt):
+        a = pt[None, :] + pat[:, 0:2]          # [256, 2]
+        b = pt[None, :] + pat[:, 2:4]
+        ia = image_mod.bilinear_sample(smoothed, a)
+        ib = image_mod.bilinear_sample(smoothed, b)
+        return (ia < ib).astype(jnp.uint32)    # [256]
 
-        patches = extract_patches_pallas(smoothed, pts, _PATCH_WIN)
-        flat = patches.reshape(pts.shape[0], _PATCH_WIN * _PATCH_WIN)
-        # HIGHEST precision: default TPU matmul truncates intensities
-        # to bf16 before the ±1 one-hot difference, flipping near-tie
-        # test pairs vs the exact gather fallback (word assignment
-        # against the shipped vocabulary must agree across backends).
-        # The [N,2401]x[2401,256] product is tiny; cost is negligible.
-        diff = jnp.dot(flat, jnp.asarray(_CMP_W),
-                       precision=jax.lax.Precision.HIGHEST)  # [N, 256]
-        desc = _pack_bits((diff > 0).astype(jnp.uint32))
-    else:
-        pat = jnp.asarray(_PATTERN)
-
-        def one(pt):
-            a = pt[None, :] + pat[:, 0:2]          # [256, 2]
-            b = pt[None, :] + pat[:, 2:4]
-            ia = image_mod.bilinear_sample(smoothed, a)
-            ib = image_mod.bilinear_sample(smoothed, b)
-            return (ia < ib).astype(jnp.uint32)    # [256]
-
-        desc = _pack_bits(jax.vmap(one)(pts))
+    desc = _pack_bits(jax.vmap(one)(pts))
     return jnp.where(valid[:, None], desc, jnp.zeros_like(desc))
 
 
@@ -163,8 +122,8 @@ def global_descriptor(desc: jax.Array, valid: jax.Array,
     Spatially-pooled bit statistics: the image is split into a 2×2 grid;
     per cell, the mean of each of the 256 BRIEF bits over that cell's
     keypoints → [4·256] float, L2-normalized. Scoring a query against the
-    whole keyframe database is then ONE [K, 1024] @ [1024] matvec on the
-    MXU — the TPU-native replacement for DBoW2's inverted-file lookup
+    whole keyframe database is then ONE [K, 1024] @ [1024] matvec — the
+    dense replacement for DBoW2's inverted-file lookup
     (SURVEY.md §2.2), serving the same role as the BoW L1 score
     (ScoringObject.cpp) with spatial layout added.
     """

@@ -1,18 +1,17 @@
 """Core image ops: separable filtering, pyramids, bilinear sampling, CLAHE.
 
-TPU-native replacements for the OpenCV image plumbing the reference leans
+Replacements for the OpenCV image plumbing the reference leans
 on (SURVEY.md §2.2): `cv::buildOpticalFlowPyramid` feeding
 calcOpticalFlowPyrLK (feature_tracker.cpp:181) and `cv::createCLAHE(3.0)`
 (ViewController.mm:439-441).
 
-Performance formulation (measured on a real v5e): XLA:TPU lowers
-reflect-padded small convolutions on single-channel images poorly
-(5-19 ms per op at 640x480), but the same filters expressed as banded
-Toeplitz MATMULS run on the MXU in <1 ms — so every separable filter
-here is `RowBand @ img @ ColBand`, with decimation fused into the band
-matrix for pyramid levels. CLAHE's per-tile histograms use a fused
-compare-reduce (TPU scatter-add is slow) and the per-pixel LUT blend is
-a tile-grouped one-hot contraction on the MXU instead of a gather.
+Formulation: every separable filter here is a banded Toeplitz matmul,
+`RowBand @ img @ ColBand`, with decimation fused into the band matrix for
+pyramid levels. CLAHE's per-tile histograms use a fused compare-reduce
+instead of a scatter-add, and the per-pixel LUT blend is a tile-grouped
+one-hot contraction instead of a gather. (These forms were chosen for a
+compiler that lowered small convolutions, scatters and gathers poorly;
+whether they still pay on the GPU is ROADMAP Queue 3 item 2.)
 
 Images are [H, W] float32 in [0, 1] (single channel).
 """
@@ -52,7 +51,7 @@ def _band_np(n: int, kernel: Tuple[float, ...], decimate: int = 1
 
 def _sep_filter(img: jax.Array, kernel: Tuple[float, ...],
                 decimate: int = 1) -> jax.Array:
-    """Separable 2D filter with reflect padding as two MXU matmuls,
+    """Separable 2D filter with reflect padding as two banded matmuls,
     optionally fused with 2D decimation (used by pyr_down)."""
     H, W = img.shape
     r = jnp.asarray(_band_np(H, kernel, decimate))
@@ -143,11 +142,11 @@ def clahe(img: jax.Array, clip_limit: float = 3.0, grid: int = 8,
     equalizes every camera frame before tracking, ViewController.mm:439).
     Static-shape and gather-free:
       * per-tile histograms: fused compare-reduce against the bin iota
-        (scatter-add measured 5x slower on TPU);
+        (instead of a scatter-add);
       * per-pixel LUT application: pixels grouped into half-tile blocks,
         within which the 4 bilinear-neighbor tiles are CONSTANT, so the
         4 LUT evaluations become one one-hot [px,bins] x [bins,4]
-        contraction per block on the MXU.
+        contraction per block.
     Requires even tile sides for the half-block grouping (true for all
     supported camera profiles); falls back to the gather path otherwise.
     """
@@ -229,9 +228,10 @@ def _apply_luts_blocked(v: jax.Array, luts: jax.Array, grid: int,
     vb = vb.reshape(g2 * g2, h2 * w2)
     # bf16 contraction with f32 accumulation: the one-hot is exact in
     # bf16 and the LUT values lose ~2^-8 — the same scale as the n_bins
-    # quantization already inherent to CLAHE — while the MXU runs one
-    # pass instead of the six fp32 passes HIGHEST forces (this einsum
-    # was the bulk of the per-frame CLAHE cost).
+    # quantization already inherent to CLAHE — and bf16 operands are
+    # exempt from the HIGHEST (full fp32) precision the package sets for
+    # every f32 matmul (this einsum was the bulk of the per-frame CLAHE
+    # cost).
     onehot = jax.nn.one_hot(vb, n_bins, dtype=jnp.bfloat16)  # [B, px, bins]
     evals = jnp.einsum("bpk,bck->bcp", onehot,
                        corners.astype(jnp.bfloat16),

@@ -1,6 +1,6 @@
 """Batched fixed-hypothesis RANSAC estimators + pose recovery + PnP.
 
-TPU-native replacements for the reference's adaptive OpenCV calls
+Batched replacements for the reference's adaptive OpenCV calls
 (SURVEY.md §7.1): cv::findFundamentalMat(FM_RANSAC) used for outlier
 culling (feature_tracker.cpp:89-105, :198), cv::findEssentialMat +
 recoverPose for bootstrap relative pose (motion_estimator.cpp:200-236),
@@ -51,13 +51,13 @@ def _eight_point(p1: jax.Array, p2: jax.Array) -> jax.Array:
     """Fit F (or E) from 8 correspondences via the linear 8-point system.
     p1, p2: [8, 2]. Returns [3,3] WITHOUT rank-2 enforcement — Sampson
     scoring does not need it, so RANSAC projects only the winning
-    hypothesis (batched 3x3 SVD measured 50x slower than the [8,9]
-    null-vector SVD on TPU).
+    hypothesis (a batched 3x3 SVD per hypothesis is an iterative solver
+    call per hypothesis).
 
     The null vector comes from a complete QR of Aᵀ: the last column of Q
     is orthogonal to every row of A — exactly null(A) for an 8x9 system.
-    Batched QR is 8 vectorized Householder steps; the batched [8,9] SVD
-    it replaces was ~3 ms/frame of QR-algorithm iteration on TPU."""
+    Batched QR is 8 vectorized Householder steps, where a batched [8,9]
+    SVD iterates the QR algorithm to convergence."""
     x1, y1 = p1[:, 0], p1[:, 1]
     x2, y2 = p2[:, 0], p2[:, 1]
     A = jnp.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,

@@ -2,9 +2,9 @@
 block-sharded distributed bundle adjustment.
 
 The reference is a single-process mobile app whose only parallelism is
-five pthreads (SURVEY.md §2.3); the TPU-native equivalents here are
-first-class: `jax.sharding.Mesh` + `shard_map`, with XLA collectives
-(psum) riding ICI for the distributed normal-equation reduction.
+five pthreads (SURVEY.md §2.3); the equivalents here are first-class:
+`jax.sharding.Mesh` + `shard_map`, with an XLA collective (psum) for the
+distributed normal-equation reduction.
 """
 from .mesh import make_mesh, batch_sharding, replicated_sharding
 from .batched import make_batched_step, make_batched_sequence_runner, \

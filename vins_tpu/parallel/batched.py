@@ -1,6 +1,6 @@
 """Data-parallel VIO: B independent sliding-window streams per step.
 
-The reference processes one camera stream on one phone; the TPU frame
+The reference processes one camera stream on one phone; the frame here
 for throughput is `vmap(backend_step)` over a leading stream axis whose
 shards live on the `batch` mesh axis. No collectives are needed — streams
 are independent — so scaling is embarrassingly parallel and efficiency is

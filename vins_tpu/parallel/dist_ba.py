@@ -2,13 +2,13 @@
 
 The reference's only large NLLS problems are the init SfM BA
 (inital_sfm.cpp:234-293) and the 4-DoF pose graph — both single-device,
-Ceres. The TPU-native scale-out (SURVEY.md §2.3, §5.7) partitions the
+Ceres. The scale-out here (SURVEY.md §2.3, §5.7) partitions the
 *landmarks* of a global BA across the mesh's `block` axis:
 
   per device:  residuals/Jacobians for its landmark shard
                H_cc^(d), g_c^(d)      (pose-pose normal equations)
                S^(d) = Σ_l B_l Hpp_l⁻¹ B_lᵀ   (local Schur contribution)
-  collective:  H_s = psum(H_cc − S), g_s = psum(g_c − ...)  over ICI
+  collective:  H_s = psum(H_cc − S), g_s = psum(g_c − ...)
   replicated:  Cholesky solve of the reduced camera system  [6K × 6K]
   per device:  landmark back-substitution for its shard (no comm)
 
@@ -119,7 +119,7 @@ def _local_normal_eqs(state: BAState, prob: BAProblem):
     B = B.reshape(L, K * 6, 3)
 
     Hpp_inv = jnp.linalg.inv(Hpp)
-    # Schur contribution: S = Σ_l B_l Hpp_l⁻¹ B_lᵀ  (MXU einsum).
+    # Schur contribution: S = Σ_l B_l Hpp_l⁻¹ B_lᵀ  (one einsum).
     S = jnp.einsum("lia,lab,ljb->ij", B, Hpp_inv, B)
     gs_corr = jnp.einsum("lia,lab,lb->i", B, Hpp_inv, g_p)
 
@@ -232,7 +232,7 @@ def solve_ba_sharded(state: BAState, prob: BAProblem, mesh: Mesh,
 
     L must divide by the block-axis size. Poses replicate; landmarks,
     observations, and masks shard on their leading axis. The per-iteration
-    collective is one psum of a [6K,6K] matrix + [6K] vector over ICI.
+    collective is one psum of a [6K,6K] matrix + [6K] vector.
     """
     prob = _materialize_prior(state, prob)
     pspec_lm = P(BLOCK_AXIS)

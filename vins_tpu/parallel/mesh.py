@@ -3,7 +3,11 @@
 Axes (SURVEY.md §7.1 "Scale-out"):
   * `batch` — data-parallel independent VIO streams (windows/sequences);
   * `block` — landmark-block partition of distributed bundle adjustment,
-    reduced with `psum` over ICI.
+    reduced with `psum`.
+
+Every device reaches every other at the same rate (the cards of one host
+are joined all to all), so the mesh is a plain reshape of the device
+list and follows the algorithm alone.
 """
 from __future__ import annotations
 

@@ -10,14 +10,13 @@ analytic model is the transferable part:
 
   per LM iteration and shard (L landmarks over B shards, K poses):
     compute ≈ (L/B)·K·c_lin  FLOPs for residual/Jacobian/normal eqs
-              + (L/B)·(6K)²·3 for the local Schur contribution (MXU)
+              + (L/B)·(6K)²·3 for the local Schur contribution
     comm     = one psum of a [6K,6K]+[6K] fp32 buffer
              → ring all-reduce moves 2·(B−1)/B · bytes per link
 
-  With K=64 poses the psum payload is 4·(384²+384) ≈ 0.6 MB; at v5e ICI
-  (~45 GB/s per direction per link) that is ~25 µs — far below the
-  per-shard compute at any realistic landmark count, which is why ≥70 %
-  efficiency to 2 hosts holds with margin (see SCALING.md).
+  With K=64 poses the psum payload is 4·(384²+384) ≈ 0.6 MB; over
+  NVLink's 450 GB/s each way that is a few µs — far below the per-shard
+  compute at map-scale landmark counts.
 """
 from __future__ import annotations
 

@@ -73,7 +73,7 @@ timers = StageTimers()
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """XLA/TPU trace for TensorBoard (`jax.profiler.trace` wrapper)."""
+    """Device trace for TensorBoard/Perfetto (`jax.profiler.trace`)."""
     with jax.profiler.trace(log_dir):
         yield
 
@@ -82,7 +82,7 @@ def cost_analysis(fn: Callable, *args, static_argnums=()) -> Dict[str, float]:
     """Compiled-program cost counters from XLA.
 
     Returns a dict with at least `flops` and `bytes accessed` when the
-    backend reports them (CPU and TPU both do). Use as the numerator-free
+    backend reports them (CPU and GPU both do). Use as the numerator-free
     side of a speed-of-light estimate: achieved_time vs
     flops/peak_flops and bytes/peak_bw.
     """
@@ -94,21 +94,34 @@ def cost_analysis(fn: Callable, *args, static_argnums=()) -> Dict[str, float]:
     return dict(costs) if costs else {}
 
 
-def speed_of_light(fn: Callable, *args, peak_tflops: float = 197.0,
-                   peak_hbm_gbs: float = 819.0,
-                   measured_s: Optional[float] = None) -> Dict[str, float]:
-    """Roofline bound for a jitted fn on the current chip.
+# Published peaks per device, keyed by jax `Device.device_kind`. The
+# package runs every f32 matmul at "highest" precision (no TF32), so the
+# compute peak is the FP32 rate outside the tensor cores. Source: NVIDIA
+# H100 SXM data sheet (dense rates, 700 W power limit).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"flops_per_s": 67e12,
+                              "hbm_bytes_per_s": 3.35e12},
+}
 
-    Defaults are TPU v5e bf16 peak (197 TFLOP/s) and HBM bandwidth
-    (819 GB/s); fp32 MXU peak is ~1/2 that. Returns the compute- and
-    memory-bound time lower bounds and, when `measured_s` is given, the
-    fraction of speed-of-light achieved.
-    """
-    costs = cost_analysis(fn, *args)
-    flops = float(costs.get("flops", 0.0))
-    nbytes = float(costs.get("bytes accessed", 0.0))
-    t_compute = flops / (peak_tflops * 1e12)
-    t_memory = nbytes / (peak_hbm_gbs * 1e9)
+
+def device_peaks(device_kind: str) -> Dict[str, float]:
+    """Peak FP32 FLOP/s and HBM bytes/s of a device; an unknown device is
+    an error, never a default."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device kind "
+                       f"{device_kind!r}; add it to PEAKS") from None
+
+
+def roofline(flops: float, nbytes: float, device_kind: str,
+             measured_s: Optional[float] = None) -> Dict[str, float]:
+    """Compute- and memory-bound time lower bounds of `flops` and
+    `nbytes` against the device's peaks (device_peaks), and, when
+    `measured_s` is given, the fraction of speed-of-light achieved."""
+    peaks = device_peaks(device_kind)
+    t_compute = flops / peaks["flops_per_s"]
+    t_memory = nbytes / peaks["hbm_bytes_per_s"]
     bound = max(t_compute, t_memory)
     out = {"flops": flops, "bytes": nbytes,
            "t_compute_s": t_compute, "t_memory_s": t_memory,
@@ -116,3 +129,17 @@ def speed_of_light(fn: Callable, *args, peak_tflops: float = 197.0,
     if measured_s is not None and bound > 0:
         out["sol_fraction"] = bound / measured_s
     return out
+
+
+def speed_of_light(fn: Callable, *args, device_kind: str,
+                   measured_s: Optional[float] = None) -> Dict[str, float]:
+    """roofline() of a jitted fn from XLA's flop and byte counts.
+
+    XLA counts the body of a while loop (fori_loop, scan, while_loop)
+    once, whatever its trip count, so this is a bound only for loop-free
+    programs; count a looped program analytically and call roofline().
+    """
+    costs = cost_analysis(fn, *args)
+    return roofline(float(costs.get("flops", 0.0)),
+                    float(costs.get("bytes accessed", 0.0)), device_kind,
+                    measured_s)

@@ -7,7 +7,7 @@ ground plane from the sparse map and draws an AR cube on it
 (drawAR :516, drawBox :405, findGround :237, findPlane :186), and
 (c) colors trajectory segments (newColor golden-ratio HSV :95).
 
-Host-side numpy: rendering is not a TPU workload; the device produces
+Host-side numpy: rendering is not a device workload; the device produces
 the drift-corrected poses/points, this module consumes them. Images are
 float32 [H, W, 3] in [0, 1]; no OpenCV dependency (lines/polygons are
 drawn with vectorized scanline rasterization).
